@@ -7,18 +7,6 @@ Run after an INTENTIONAL rendering-semantics change:
 import os
 import sys
 
-os.environ["JAX_PLATFORMS"] = "cpu"
-
-import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
-try:
-    from jax._src import xla_bridge as _xb
-
-    _xb._clear_backends()
-except Exception:
-    pass
-
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np  # noqa: E402
@@ -73,6 +61,7 @@ def render_all():
 
 
 if __name__ == "__main__":
+    os.environ["JAX_PLATFORMS"] = "cpu"  # the goldens are CPU renders
     from tpu_renderer.present import save_png
 
     os.makedirs(GOLDEN_DIR, exist_ok=True)

@@ -1,12 +1,11 @@
-"""Production-CHUNK coverage: re-run the chunk-streaming equivalence tests
-at RASTER_CHUNK=32 — the shipped default (kernels/raster.py).
+"""Production-CHUNK coverage: re-run the chunk-walk equivalence tests at
+RASTER_CHUNK=32 — the shipped default (kernels/raster.py).
 
 The CPU suite pins RASTER_CHUNK=8 (tests/conftest.py: interpret-mode cost
-scales with the chunk unroll), so the CHUNK=32 + power-of-two bitwise slot
-indexing + 2-tris-per-row bit-packing configuration the TPU actually runs
-would otherwise only be exercised by TPU-side bench/CLI drives. raster.CHUNK
-is frozen at import, so the re-run needs a fresh interpreter: one subprocess
-pytest with the env override.
+scales with the chunk unroll), so the CHUNK=32 / 4-group gmask configuration
+the card runs would otherwise only be exercised by chip_smoke.py and the
+CLI. raster.CHUNK is frozen at import, so the re-run needs a fresh
+interpreter: one subprocess pytest per test with the env override.
 
 Run with: python -m pytest tests/ -m chunk32
 """
@@ -19,13 +18,11 @@ import pytest
 
 pytestmark = pytest.mark.chunk32
 
-# The two highest-value equivalences: stream kernels vs the gathered-row
-# oracles (covers the bit-packed stream-row metas), and the production
-# slab walk (bin_triangles_full + rasterize_fused_slabs) forced to split
-# into multiple carried-state slabs.
+# The highest-value equivalences: the chunk walk vs the deferred walk for
+# the opaque and peel rules.
 _TESTS = [
-    "tests/test_chunk_streaming.py::test_chunk_raster_matches_gathered_reference",
-    "tests/test_chunk_streaming.py::test_slab_raster_matches_single_call",
+    "tests/test_chunk_streaming.py::test_chunk_raster_matches_deferred_raster",
+    "tests/test_chunk_streaming.py::test_chunk_peel_matches_deferred_peel",
     # N_GROUPS=4 only at CHUNK=32: the real per-group gmask skip path
     "tests/test_chunk_streaming.py::test_gmask_bins_match_all_live",
 ]

@@ -1,4 +1,4 @@
-"""Rasterizer correctness: Pallas kernel vs direct per-pixel oracle, fill-rule
+"""Rasterizer correctness: the deferred walk vs direct per-pixel oracle, fill-rule
 adjacency (each boundary pixel covered exactly once), reversed-Z depth
 semantics, and binned-vs-full-bin equivalence.
 """
@@ -167,7 +167,7 @@ def test_kernel_knob_config_roundtrip():
     cfg = RendererConfig()
     assert cfg.raster_chunk == 32  # production default
     raster.configure(chunk=cfg.raster_chunk, group=cfg.raster_group,
-                     nbuf=cfg.raster_nbuf, sort=cfg.raster_sort)
+                     sort=cfg.raster_sort)
     assert raster.CHUNK == 8, "env override must win over config"
     assert raster.GROUP == min(cfg.raster_group, raster.CHUNK)
     assert raster.N_GROUPS * raster.GROUP == raster.CHUNK
@@ -183,16 +183,15 @@ def test_kernel_knob_config_applies_without_env():
 
     code = (
         "import os\n"
-        "for k in ('RASTER_CHUNK', 'RASTER_GROUP', 'RASTER_NBUF',"
-        " 'RASTER_SORT'):\n"
+        "for k in ('RASTER_CHUNK', 'RASTER_GROUP', 'RASTER_SORT'):\n"
         "    os.environ.pop(k, None)\n"
         "os.environ['JAX_PLATFORMS'] = 'cpu'\n"
         "from tpu_renderer.kernels import raster\n"
         "assert raster.CHUNK == 32, raster.CHUNK\n"
-        "raster.configure(chunk=16, group=4, nbuf=2, sort='morton')\n"
-        "assert raster.CHUNK == 16 and raster.STREAM_ROWS == 8\n"
+        "raster.configure(chunk=16, group=4, sort='morton')\n"
+        "assert raster.CHUNK == 16\n"
         "assert raster.GROUP == 4 and raster.N_GROUPS == 4\n"
-        "assert raster.NBUF == 2 and raster.SORT_MODE == 'morton'\n"
+        "assert raster.SORT_MODE == 'morton'\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in __import__('os').environ.items()

@@ -64,7 +64,10 @@ def test_uv_gradients_match_numeric_derivative_incl_silhouette():
     bins, counts = raster.full_bins(packed.shape[0] // raster.CHUNK,
                                     KW["tiles_x"] * KW["tiles_y"],
                                     packed.shape[0] // raster.CHUNK)
-    z, tid, attrs, meta, inv = raster.rasterize_fused_chunks(
+    # every tile walks every chunk, all gmask groups live
+    bins = jnp.where(bins >= 0, (bins << raster.ENTRY_SHIFT)
+                     | raster.ENTRY_GMASK_ALL, bins)
+    z, tid, attrs, meta, inv = raster.rasterize_chunks(
         rows, bins, counts, **KW)
     tid = np.asarray(tid)
     covered = tid == 0

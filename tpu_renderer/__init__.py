@@ -1,8 +1,9 @@
-"""tpu_renderer — a TPU-native software rasterizer (JAX / XLA / Pallas).
+"""tpu_renderer — a software rasterizer in JAX (XLA + Pallas kernels).
 
 A ground-up re-design of the capabilities of the reference Vulkan 1.3 forward
 renderer (vkguide-style: dynamic rendering + sync2, glTF scene graph, compute
-backgrounds, metallic-roughness forward pass) for TPU hardware:
+backgrounds, metallic-roughness forward pass) on an accelerator (an NVIDIA
+GPU; the test suite runs on the CPU):
 
 * the Vulkan device/swapchain/descriptor/pipeline machinery collapses into a
   single jit-compiled frame function (`tpu_renderer.pipeline`),

@@ -20,6 +20,7 @@ from tpu_renderer import milestones, resources
 from tpu_renderer.config import RendererConfig
 from tpu_renderer.engine import Engine
 from tpu_renderer.present import save_png
+from tpu_renderer.utils.compile_cache import enable_compile_cache
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -38,13 +39,12 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--target-fps", type=float, default=None,
                    help="auto quality: engage the render-scale lever when "
                         "the measured cost model predicts the scene misses "
-                        "this target at native extent (stock glTF files "
-                        "default to trilinear samplers — the 2-tap wall)")
+                        "this target at native extent")
     p.add_argument("--multichip", default=None, metavar="ROWSxTRI",
                    help="shard the frame over a ROWSxTRI device mesh "
                         "(e.g. 2x4): framebuffer row bands over 'rows', "
-                        "triangles over 'tri'; bootstraps virtual CPU "
-                        "devices when the backend has fewer")
+                        "triangles over 'tri'; the backend must expose "
+                        "ROWS*TRI devices")
 
 
 def _parse_multichip(args):
@@ -215,21 +215,8 @@ def cmd_view(args) -> int:
     return 0
 
 
-def _enable_compile_cache() -> None:
-    """Persistent XLA compile cache: repeat CLI runs at the same
-    (scene shapes, extent) skip the 1-6 min jit compiles."""
-    import jax
-
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          "/tmp/tpu_renderer_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-    except Exception:  # older jax without the knobs: compile fresh
-        pass
-
-
 def main(argv=None) -> int:
-    _enable_compile_cache()
+    enable_compile_cache()
     ap = argparse.ArgumentParser(prog="tpu_renderer")
     sub = ap.add_subparsers(dest="cmd", required=True)
 

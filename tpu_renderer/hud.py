@@ -2,8 +2,8 @@
 stats window :1175-1191, draw_imgui :1205-1216).
 
 The reference draws an ImGui window with frametime / draw time / update time
-/ triangles / draws onto the swapchain image after the 3D scene. Headless on
-TPU, the equivalent burns the same five lines into the presented frame with
+/ triangles / draws onto the swapchain image after the 3D scene. Headless,
+the equivalent burns the same five lines into the presented frame with
 a tiny built-in 5x7 bitmap font (host-side, on the transferred image).
 """
 

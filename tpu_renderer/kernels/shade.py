@@ -3,21 +3,14 @@ over the visibility buffer, plus the sampler/texture machinery the reference
 gets from combined image samplers (input_structures.glsl:13-16, sampler
 creation vk_loader.cpp:197-211, REPEAT addressing by Vulkan default).
 
-TPU-first constraints shaping this file:
+Every per-pixel gather here is one small row: one prebaked bilinear-quad
+row per sampled mip level (1 for nearest-mip samplers, 2 for trilinear),
+plus — on the deferred path only — one 48-float *shade row* per pixel.
+All elementwise math runs on channel-MAJOR (Hp, Wp) planes.
 
-* every gather costs ~4-12 ns per index (docs/PERF.md cost model), so this
-  stage performs exactly the minimum per-pixel gathers: one prebaked
-  bilinear-quad row per sampled mip level (1 for nearest-mip samplers, 2 for
-  trilinear), plus — on the deferred (non-fused) path only — one 48-float
-  *shade row* per pixel.
-* all elementwise math runs on channel-MAJOR (Hp, Wp) planes. A
-  channel-minor (..., 2/3/4) array lane-pads its last dimension to 128 on
-  TPU (16-64x memory blowup on every materialization), which measured ~10 ms
-  of pure overhead per frame at 1080p before the planar rewrite.
-
-Everything outside the taps — barycentrics, perspective-correct
-interpolation, mip LOD from 2x2 pixel-quad derivatives, analytic mip
-addressing, filtering, lighting — is elementwise VPU work that XLA fuses.
+Everything outside the taps — perspective-correct interpolation, mip LOD
+from analytic per-triangle derivatives, analytic mip addressing, filtering,
+lighting — is elementwise work that XLA fuses.
 """
 
 from __future__ import annotations
@@ -76,9 +69,8 @@ def build_shade_rows(packed, attrs, mat_meta=None, aabb=None, meta6=None):
     pa_a = sum_i edge_i_Xslope * attr[i, a], etc.
 
     aabb: optional (T, 4) f32 (xmin, ymin, xmax, ymax) screen boxes,
-    stored in columns 44-47 — the streaming raster loops use them as a
-    per-triangle scalar skip test against the tile rect. When omitted,
-    a never-skip sentinel box keeps every triangle eligible everywhere.
+    stored in columns 44-47 (the same columns triangle_setup_rows fills).
+    When omitted, a never-skip sentinel box fills them.
 
     meta6: optional (T, 6) f32 — the per-triangle texture-binding row
     precomputed at scene flatten (vertex.CornerData.meta6); when given,
@@ -94,9 +86,11 @@ def build_shade_rows(packed, attrs, mat_meta=None, aabb=None, meta6=None):
     A = packed[:, (0, 3, 6)]                 # (T, 3) edge-plane X slopes
     B = packed[:, (1, 4, 7)]                 # (T, 3) edge-plane Y slopes
     Cc = packed[:, (2, 5, 8)]                # (T, 3) edge-plane constants
-    pa = jnp.einsum("tc,tca->ta", A, attrs)  # (T, 6) numerator X slopes
-    pb = jnp.einsum("tc,tca->ta", B, attrs)  # (T, 6) numerator Y slopes
-    pc = jnp.einsum("tc,tca->ta", Cc, attrs)  # (T, 6) numerator constants
+    # full f32 precision: a GPU may run default-precision f32 in TF32
+    hi = jax.lax.Precision.HIGHEST
+    pa = jnp.einsum("tc,tca->ta", A, attrs, precision=hi)  # (T, 6) X slopes
+    pb = jnp.einsum("tc,tca->ta", B, attrs, precision=hi)  # (T, 6) Y slopes
+    pc = jnp.einsum("tc,tca->ta", Cc, attrs, precision=hi)  # (T, 6) constants
     grad = jnp.stack([
         pa[:, 4], pb[:, 4], pa[:, 5], pb[:, 5],
         jnp.sum(A, axis=1), jnp.sum(B, axis=1),
@@ -223,8 +217,7 @@ def sample_texture(atlas, base_x, base_y, w0, h0, n_levels, flags, u, v,
     trilinear=False is a STATIC fast path for scenes where no sampler mixes
     two mip levels (no FILTER_MIP_LINEAR material with a mipmapped
     texture): the per-pixel mip fraction is provably 0, so the second tap's
-    whole-frame gather (~8-25 ms at 1080p by the measured cost model) is
-    skipped entirely. Results are bit-identical to the two-tap path.
+    whole-frame gather is skipped entirely. Results are bit-identical to the two-tap path.
     """
     fl = flags.astype(jnp.int32)
     dudx, dudy, dvdx, dvdy = grads
@@ -249,10 +242,8 @@ def sample_texture(atlas, base_x, base_y, w0, h0, n_levels, flags, u, v,
     min_lin = (fl & FILTER_MIN_LINEAR) != 0
     linear = jnp.where(lod > 0.0, min_lin, mag_lin)
 
-    # two quad-row taps; a single-gather 16-u32 "trilinear row" variant was
-    # measured 4x SLOWER (gather cost scales with row bytes beyond ~16 B on
-    # this hardware) — see docs/PERF.md. The second tap's address is masked
-    # for pixels whose mip fraction is 0 (mip-nearest samplers, magnified or
+    # two quad-row taps. The second tap's address is masked for pixels
+    # whose mip fraction is 0 (mip-nearest samplers, magnified or
     # exactly-on-level pixels): its result is multiplied by 0 anyway.
     ca = _sample_level(atlas, base_x, base_y, w0, h0, lev_a, u, v, linear,
                        pot=pot)

@@ -1,8 +1,8 @@
-"""Vertex stage + triangle setup — the TPU equivalent of mesh.vert
+"""Vertex stage + triangle setup — the equivalent of mesh.vert
 (shaders/mesh.vert:29-38) plus the fixed-function primitive assembly inside
 vkCmdDrawIndexed (vk_engine.cpp:1453).
 
-Design (TPU-first, not a translation):
+Design:
 
 * All draws are processed as one batched op over a flat triangle array —
   the reference's per-draw loop with push constants (vk_engine.cpp:1409-1453)
@@ -21,7 +21,7 @@ Design (TPU-first, not a translation):
   device, including its quirks (plain w-divide without sign guard, [-1.5,1.5]
   min/max seeds).
 
-Packed setup row layout (16 f32 per triangle, lane-padded):
+Packed setup row layout (16 f32 per triangle):
   [A0,B0,C0, A1,B1,C1, A2,B2,C2, zA,zB,zC, valid, mat_id, 0, 0]
 where edge_i(X, Y) = A_i*X + B_i*Y + C_i (already normalized by |det| so the
 edge values ARE the barycentric weights c_i).
@@ -33,6 +33,11 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+
+# Geometry products run at full f32 precision: on a GPU a default-precision
+# f32 contraction may run in TF32 (~3 decimal digits), which moves vertices
+# by pixels at 1080p.
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 # Column indices in the packed setup row.
 COL_E = 0          # 9 edge coefficients
@@ -61,9 +66,8 @@ class CornerData(NamedTuple):
 
     Vertex positions/normals/colors/uvs and the per-triangle material are
     constant across frames (only node transforms animate), so the per-corner
-    gathers positions[tri_vidx] etc. — ~16 gather-issues per triangle at
-    ~4 ns each, the whole cull/setup stage cost — move out of the frame
-    function into scene flattening. The reference pays the analogous cost
+    gathers positions[tri_vidx] etc. move out of the frame function into
+    scene flattening. The reference pays the analogous cost
     once too: vertices are interleaved at load time (vk_loader.cpp:286-358)
     and the GPU's vertex fetch streams them contiguously.
     """
@@ -76,11 +80,8 @@ class CornerData(NamedTuple):
     mat: jax.Array    # (T,) i32 — material id (padding rows -> 0)
     meta6: jax.Array  # (T, 6) f32 — mat_meta[:, :6] texture-binding row
     # T-MINOR twins of the static fields, laid out (corner, comp, T) /
-    # (col, T) so per-frame setup math runs on dense lane-major planes.
-    # A (T, small) f32 array pads its minor dim to 128 lanes on TPU — a
-    # 32x storage/bandwidth blowup on every elementwise op; the planar
-    # twins make triangle_setup_rows' whole dataflow dense (docs/PERF.md
-    # "lane padding"). Built once per scene alongside the originals.
+    # (col, T) so triangle_setup_rows' per-frame plane math runs on dense
+    # (T,) planes. Built once per scene alongside the originals.
     posT: jax.Array   # (3, 3, T) f32
     nrmT: jax.Array   # (3, 3, T) f32
     colT: jax.Array   # (3, 3, T) f32
@@ -132,10 +133,10 @@ def draw_visibility(viewproj, draw_model, bounds_origin, bounds_extents):
          [-1, 1, 1], [-1, 1, -1], [-1, -1, 1], [-1, -1, -1]],
         dtype=jnp.float32,
     )  # vk_engine.cpp:57-60
-    m = jnp.einsum("ij,djk->dik", viewproj, draw_model)  # viewproj * obj.transform
+    m = jnp.einsum("ij,djk->dik", viewproj, draw_model, precision=_HIGHEST)  # viewproj * obj.transform
     pts = bounds_origin[:, None, :] + corners[None, :, :] * bounds_extents[:, None, :]
     pts_h = jnp.concatenate([pts, jnp.ones_like(pts[..., :1])], axis=-1)  # (D,8,4)
-    v = jnp.einsum("dij,dcj->dci", m, pts_h)  # (D,8,4)
+    v = jnp.einsum("dij,dcj->dci", m, pts_h, precision=_HIGHEST)  # (D,8,4)
     # vk_engine.cpp:73-75 — unguarded w-divide (quirk kept: no w>0 test)
     ndc = v[..., :3] / v[..., 3:4]
     # vk_engine.cpp:64-65 — min/max seeded at +-1.5
@@ -201,23 +202,19 @@ def triangle_setup_c(
     W = f32(width)
     H = f32(height)
 
-    mvp = jnp.einsum("ij,djk->dik", viewproj, draw_model)           # (D,4,4)
+    mvp = jnp.einsum("ij,djk->dik", viewproj, draw_model, precision=_HIGHEST)           # (D,4,4)
     # mesh.frag:13 consumes the model-rotated normal ONLY via
     # dot(model3 @ n, sun_dir) == dot(n, model3^T @ sun_dir): rotate the sun
     # into each draw's mesh space ONCE per draw instead of gathering the
     # (D, 3, 3) rotation per triangle (36-byte rows pay ~3x per index).
     sd = jnp.zeros(3, f32) if sun_dir is None \
         else jnp.asarray(sun_dir, f32)[:3]
-    ls = jnp.einsum("dji,j->di", draw_model[:, :3, :3], sd)          # (D,3)
+    ls = jnp.einsum("dji,j->di", draw_model[:, :3, :3], sd, precision=_HIGHEST)          # (D,3)
     # pack the frustum-cull bit into the same row: one gather serves both
     lsvis = jnp.concatenate(
         [ls, draw_visible.astype(f32)[:, None]], axis=1)             # (D,4)
 
-    # Gather mvp COLUMN-wise: four (D, 4) 16-byte-row gathers instead of one
-    # (D, 4, 4) 64-byte-row gather. 64-byte rows pay ~4x per index AND the
-    # (D, 4, 4) table crosses the ~512 KB VMEM-staging cliff at D ~ 8k
-    # (docs/PERF.md gather model) — the stress scene's 15k draws put it in
-    # the slow regime; each (D, 4) column table stays fast to D ~ 32k.
+    # Gather mvp COLUMN-wise: four (D, 4) 16-byte-row gathers.
     # clip_c = x*M[:,0] + y*M[:,1] + z*M[:,2] + M[:,3] (pos_h w = 1).
     mcol = [mvp[:, :, k][tri_draw][:, None, :] for k in range(4)]    # 4x(T,1,4)
     pos = corners.pos                                                # (T,3,3)
@@ -252,7 +249,7 @@ def triangle_setup_c(
     cplane = jnp.where(good[:, None, None], cplane, dead_row[None, None, :])
 
     # Depth plane: z(X,Y) = sum_i c_i(X,Y) * zclip_i  — affine in (X,Y).
-    zplane = jnp.einsum("tec,te->tc", cplane, zc)                     # (T,3)
+    zplane = jnp.einsum("tec,te->tc", cplane, zc, precision=_HIGHEST)                     # (T,3)
 
     # Screen AABB for binning. Only trustworthy when all w are comfortably
     # positive; otherwise the triangle crosses the eye plane and its screen
@@ -277,7 +274,7 @@ def triangle_setup_c(
     # normalized), consumed only through dot(N, sun_dir) in mesh.frag:13 —
     # bake the dot per corner (linear, so interpolation commutes); computed
     # in mesh space against the pre-rotated sun (see lsvis above)
-    light_num = jnp.einsum("tci,ti->tc", corners.nrm, lv[:, :3])[..., None]
+    light_num = jnp.einsum("tci,ti->tc", corners.nrm, lv[:, :3], precision=_HIGHEST)[..., None]
     attrs = jnp.concatenate([light_num, corners.col, corners.uv], axis=-1)
 
     packed = jnp.zeros((tri_draw.shape[0], SETUP_COLS), f32)
@@ -312,13 +309,10 @@ def triangle_setup_rows(
     computed on dense (T,)-lane planes, returning (rows48, aabb, valid).
 
     Bit-identical to ``shade.build_shade_rows(triangle_setup_c(...))`` (a
-    parity test pins this) but ~2x cheaper: every (T, small) intermediate of
-    the reference composition pads its minor dim to 128 lanes on TPU (a 32x
-    bandwidth tax per op — the same "lane padding" lesson the shade stage
-    learned in round 2, docs/PERF.md), while this path does the 5 per-frame
-    row gathers once, relayouts them T-minor ONCE, runs all plane math on
-    dense (T,) planes from the pre-transposed CornerData twins, and emits
-    the (T, 48) fat-row block with one final stack+transpose.
+    parity test pins this): it does the 5 per-frame row gathers once,
+    relayouts them T-minor ONCE, runs all plane math on dense (T,) planes
+    from the pre-transposed CornerData twins, and emits the (T, 48)
+    fat-row block with one final stack+transpose.
 
     Reference analog: mesh.vert + the fixed-function primitive setup
     (vk_engine.cpp:1453 vkCmdDrawIndexed feeds both from one vertex stream).
@@ -328,10 +322,10 @@ def triangle_setup_rows(
     H = f32(height)
     T = tri_draw.shape[0]
 
-    mvp = jnp.einsum("ij,djk->dik", viewproj, draw_model)            # (D,4,4)
+    mvp = jnp.einsum("ij,djk->dik", viewproj, draw_model, precision=_HIGHEST)            # (D,4,4)
     sd = jnp.zeros(3, f32) if sun_dir is None \
         else jnp.asarray(sun_dir, f32)[:3]
-    ls = jnp.einsum("dji,j->di", draw_model[:, :3, :3], sd)          # (D,3)
+    ls = jnp.einsum("dji,j->di", draw_model[:, :3, :3], sd, precision=_HIGHEST)          # (D,3)
     lsvis = jnp.concatenate(
         [ls, draw_visible.astype(f32)[:, None]], axis=1)             # (D,4)
 

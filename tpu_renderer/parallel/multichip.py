@@ -37,34 +37,18 @@ from tpu_renderer.present import to_packed_u32
 
 
 def ensure_devices(n: int) -> None:
-    """Make at least n JAX devices visible, bootstrapping n virtual CPU host
-    devices when the backend exposes fewer (the usual case: one real chip).
-    Resets an already-initialized backend the same way tests/conftest.py
-    does; call BEFORE creating any array you intend to keep."""
-    import os
+    """Fail unless the backend exposes at least n devices.
 
-    if len(jax.devices()) >= n:
-        return
-    os.environ["JAX_PLATFORMS"] = "cpu"
-    flags = os.environ.get("XLA_FLAGS", "")
-    if "xla_force_host_platform_device_count" not in flags:
-        os.environ["XLA_FLAGS"] = (
-            flags + f" --xla_force_host_platform_device_count={n}").strip()
-    jax.config.update("jax_platforms", "cpu")
-    try:
-        from jax._src import xla_bridge as _xb
-
-        _xb._clear_backends()
-        for _fn in ("get_backend", "local_devices", "process_count"):
-            try:
-                getattr(_xb, _fn).cache_clear()
-            except Exception:
-                pass
-    except Exception:  # private API moved; backend may be fresh already
-        pass
-    jax.config.update("jax_num_cpu_devices", n)
-    assert len(jax.devices()) >= n, (
-        f"virtual-device bootstrap failed: need {n}, have {len(jax.devices())}")
+    A run never switches backends to find devices: a multi-device CPU run
+    gets its virtual devices before the backend starts
+    (XLA_FLAGS=--xla_force_host_platform_device_count=N or
+    jax.config.update("jax_num_cpu_devices", N), as tests/conftest.py
+    does)."""
+    have = len(jax.devices())
+    if have < n:
+        raise RuntimeError(
+            f"the mesh needs {n} devices; the {jax.default_backend()} "
+            f"backend has {have}")
 
 
 def make_mesh(n_rows: int, n_tri: int = 1, devices=None) -> Mesh:
@@ -180,7 +164,9 @@ def render_frame_multichip(buffers: SceneBuffers, params: FrameParams, *,
         tri_idx = jax.lax.axis_index("tri")
         y0 = (row * band_h).astype(jnp.float32)
 
-        viewproj = (params.proj @ params.view).astype(jnp.float32)
+        # full f32 precision, as in the single-chip render_frame
+        viewproj = jnp.matmul(params.proj, params.view,
+                              precision=jax.lax.Precision.HIGHEST)
 
         vis = vertex.draw_visibility(viewproj, buffers.draw_model,
                                      buffers.draw_bounds_origin,
@@ -203,10 +189,9 @@ def render_frame_multichip(buffers: SceneBuffers, params: FrameParams, *,
                     corners, draw, valid, buffers.draw_model, visible,
                     viewproj, width, height, sun_dir=params.sun_dir[:3],
                     y0=y0)
-                # shard-local screen-space sort (tight chunk AABBs, same
-                # ~35% bin-entry cut as the single-chip hot path), then
-                # UNCAPPED dense bins walked in slabs — structurally
-                # overflow-free
+                # shard-local screen-space sort (tight chunk AABBs, as on
+                # the single-chip hot path), then UNCAPPED dense bins —
+                # structurally overflow-free
                 aabb_s, valid_s, rows_l = raster.spatial_sort(
                     aabb_l, valid_l, rows_l)
                 caabb, cvalid = raster.chunk_aabbs(aabb_s, valid_s)
@@ -254,8 +239,8 @@ def render_frame_multichip(buffers: SceneBuffers, params: FrameParams, *,
         aux["bin_overflow"] = jax.lax.pmax(oflow_c, ("rows", "tri"))
         t_shard = ov.shape[0]
         if fused:
-            # chunk-streaming slab raster, same as the single-chip hot path
-            z, tid_local, attrs_l, meta_l, inv_l = raster.rasterize_fused_slabs(
+            # chunk-bin walk, same as the single-chip hot path
+            z, tid_local, attrs_l, meta_l, inv_l = raster.rasterize_chunks(
                 rows_local, cbins, ccounts, tiles_x=tiles_x,
                 tiles_y=tiles_y_band, tile_w=tile_w, tile_h=tile_h)
             tid = jnp.where(tid_local >= 0, tid_local + tri_idx * t_shard, -1)
@@ -312,7 +297,7 @@ def render_frame_multichip(buffers: SceneBuffers, params: FrameParams, *,
                 light = jnp.concatenate([
                     params.sun_dir[:3], params.sun_color[3:4],
                     params.ambient[:3], jnp.zeros(1, jnp.float32)])
-                delta, cnt = raster.rasterize_accum_slabs(
+                delta, cnt = raster.accumulate_chunks(
                     rows_t, cbins_t, ccounts_t, z, light,
                     tiles_x=tiles_x, tiles_y=tiles_y_band,
                     tile_w=tile_w, tile_h=tile_h)
@@ -358,7 +343,7 @@ def render_frame_multichip(buffers: SceneBuffers, params: FrameParams, *,
                     last_local = jnp.clip(last - base_id, -1, raster.ID_INF)
                     if fused:
                         layer_l, attrs_px, meta_px, inv_px = \
-                            raster.rasterize_peel_slabs(
+                            raster.peel_chunks(
                                 rows_t, cbins_t, ccounts_t, z, last_local,
                                 tiles_x=tiles_x, tiles_y=tiles_y_band,
                                 tile_w=tile_w, tile_h=tile_h)

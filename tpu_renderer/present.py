@@ -3,15 +3,10 @@
 
 The reference blits the rgba16f draw image to a B8G8R8A8_UNORM swapchain
 image (no color-space conversion: the surface is UNORM + SRGB_NONLINEAR,
-so values are interpreted as already-encoded). The TPU equivalent: crop the
-padded planar framebuffer, convert float -> unorm8 (clamp, round to
-nearest) packed into one u32 plane on device, and view the bytes as
-(H, W, 4) uint8 RGBA on the host.
-
-The device side never materializes a (H, W, 4) u8 array: a 4-wide minor
-dimension lane-pads to 128 on TPU (32x storage blowup — measured ~3 ms per
-frame at 1080p just for the final bitcast). The packed u32 plane is dense;
-the channel split is a free numpy view after the transfer.
+so values are interpreted as already-encoded). Here: crop the padded planar
+framebuffer, convert float -> unorm8 (clamp, round to nearest) packed into
+one u32 plane on device, and view the bytes as (H, W, 4) uint8 RGBA on the
+host — the channel split is a free numpy view after the transfer.
 """
 
 from __future__ import annotations
@@ -21,6 +16,8 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from tpu_renderer.utils import png
 
 
 @functools.partial(jax.jit, static_argnames=("width", "height"))
@@ -41,12 +38,11 @@ def unpack_u8(packed: np.ndarray) -> np.ndarray:
 
 
 def save_png(image_u8: np.ndarray, path: str) -> None:
-    from PIL import Image
-
-    Image.fromarray(np.asarray(image_u8), mode="RGBA").save(path)
+    with open(path, "wb") as f:
+        f.write(png.encode(np.asarray(image_u8)))
 
 
 def load_png(path: str) -> np.ndarray:
-    from PIL import Image
-
-    return np.asarray(Image.open(path).convert("RGBA"))
+    """PNG file -> (H, W, 4) uint8 RGBA (8-bit RGB/RGBA; utils/png.py)."""
+    with open(path, "rb") as f:
+        return png.decode(f.read())

@@ -1,12 +1,10 @@
-"""Device resources — the TPU equivalent of the reference's VMA allocations,
+"""Device resources — the equivalent of the reference's VMA allocations,
 texture uploads and mip generation (vk_engine.cpp:308-338, 1537-1617,
 vk_images.cpp:66-133) plus upload_mesh (vk_engine.cpp:340-390).
 
-Texture storage is designed around one hard TPU constraint: *every indexed
-(gathered) operation costs ~tens of ns per index, flat up to ~16-byte rows
-(wider rows cost extra: 64 B rows measured ~4x — docs/PERF.md)*. So texture
-state is laid out so that one frame needs exactly one 16-byte-row gather per
-sampled mip level:
+Texture state is laid out so that one frame needs exactly one 16-byte-row
+gather per sampled mip level (whether that layout still pays on the GPU,
+against plain 4-texel gathers, is an open question in PERF.md):
 
 * **Analytic atlas layout**: each texture is a packed horizontal pyramid —
   with ``W2 = 2 * max(w0, h0)``, mip level L sits at

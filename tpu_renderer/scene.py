@@ -9,7 +9,7 @@ Semantics preserved exactly, including the two transform quirks:
 * ``MeshNode.draw`` uses ``world_transform @ top_matrix`` in that order
   (vk_engine.cpp:1717).
 
-The TPU-side difference: instead of recording one vkCmdDrawIndexed per
+The difference: instead of recording one vkCmdDrawIndexed per
 RenderObject, the flattened draw list becomes packed triangle arrays
 (SceneBuffers) consumed by the batched pipeline. Frustum culling moves on
 device (kernels/vertex.draw_visibility), so the flatten is static per scene

@@ -7,12 +7,13 @@ equivalent (its assets are checked-in binaries).
 
 from __future__ import annotations
 
-import io
 import json
 import struct
 from typing import List, Optional
 
 import numpy as np
+
+from tpu_renderer.utils import png
 
 
 class GLBBuilder:
@@ -66,11 +67,7 @@ class GLBBuilder:
     # -- content -------------------------------------------------------------
 
     def add_image(self, rgba: np.ndarray) -> int:
-        from PIL import Image
-
-        buf = io.BytesIO()
-        Image.fromarray(rgba, mode="RGBA").save(buf, format="PNG")
-        view = self.add_buffer_view(buf.getvalue())
+        view = self.add_buffer_view(png.encode(rgba))
         self.gltf.setdefault("images", []).append(
             {"bufferView": view, "mimeType": "image/png"})
         return len(self.gltf["images"]) - 1

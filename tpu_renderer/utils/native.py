@@ -1,5 +1,5 @@
 """ctypes binding for the native asset library (native/assetlib.cpp) — the
-TPU build's C++ tier for host asset work, mirroring the reference's
+renderer's C++ tier for host asset work, mirroring the reference's
 fastgltf/stb/vkCmdBlitImage pipeline. Builds on first use (g++); every
 entry point has a numpy fallback with identical semantics.
 """

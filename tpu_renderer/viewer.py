@@ -1,6 +1,6 @@
 """Interactive terminal viewer — the live windowed loop of the reference
 (GLFW window + key/cursor callbacks, vk_engine.cpp:1161-1203, camera.h:33-41)
-re-homed onto a terminal: frames render on the TPU, present as 24-bit-color
+re-homed onto a terminal: frames render on the device, present as 24-bit-color
 half-block cells, and WASD/arrow keys drive the same Camera the reference's
 GLFW callbacks drive.
 
